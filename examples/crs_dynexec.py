@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Online composite pipeline: estimate → predict → intercept-plan → record.
 
-TPU-native equivalent of the reference's dynamic-execution composition
+JAX-native equivalent of the reference's dynamic-execution composition
 (ref: examples/robot_airship/CRS_planner_dynexec.cpp:75
 CRS_execute_dynamic_planner_impl + predict_satellite3D.cpp:414 streaming;
 ctrl_sys/belief_state_predictor.hpp:79; interpolation/transformed_trajectory.hpp
@@ -49,8 +49,9 @@ from run_crs_planner import chain_capsules
 
 import reak_tpu
 
-# full-f32 contractions for parity-grade numerics (explicit opt-in; ADVICE r4)
+# full-f32 contractions for parity-grade numerics (explicit opt-in)
 reak_tpu.enable_full_precision()
+reak_tpu.enable_compile_cache()
 
 DEFAULTS = dict(
     steps=40,            # measurement rows streamed online

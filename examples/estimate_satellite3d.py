@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Satellite state estimation CLI — EKF / invariant EKF / UKF, Monte-Carlo.
 
-TPU-native equivalent of the reference's estimate_satellite3D app
+JAX-native equivalent of the reference's estimate_satellite3D app
 (ref: examples/robot_airship/estimate_satellite3D.cpp:1482 main,
 :1493-1496 --generate-meas, :1502-1505 --mc-runs, :1507 --online-run).
 
@@ -34,8 +34,9 @@ from reak_tpu.math import rotations as rot
 
 import reak_tpu
 
-# full-f32 contractions for parity-grade numerics (explicit opt-in; ADVICE r4)
+# full-f32 contractions for parity-grade numerics (explicit opt-in)
 reak_tpu.enable_full_precision()
+reak_tpu.enable_compile_cache()
 
 
 DEFAULTS = dict(

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Satellite target prediction CLI — estimate online, then predict forward.
 
-TPU-native equivalent of the reference's predict_satellite3D app
+JAX-native equivalent of the reference's predict_satellite3D app
 (ref: examples/robot_airship/predict_satellite3D.cpp:414 main;
 ctrl_sys/belief_state_predictor.hpp:79): run the invariant filter over a
 measurement stream, then roll the belief forward over a horizon and emit the
@@ -31,8 +31,9 @@ from estimate_satellite3d import (DEFAULTS as EST_DEFAULTS, make_system,
 
 import reak_tpu
 
-# full-f32 contractions for parity-grade numerics (explicit opt-in; ADVICE r4)
+# full-f32 contractions for parity-grade numerics (explicit opt-in)
 reak_tpu.enable_full_precision()
+reak_tpu.enable_compile_cache()
 
 DEFAULTS = dict(EST_DEFAULTS, horizon=50, n_scenarios=0, output="")
 

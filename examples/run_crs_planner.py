@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """CRS-A465 manipulator planning CLI — static scene & moving-target modes.
 
-TPU-native equivalent of the reference's run_CRS_planner app
+JAX-native equivalent of the reference's run_CRS_planner app
 (ref: examples/robot_airship/run_CRS_planner.cpp:217 main, planner dispatch
 :141-190; dynamic interception CRS_planner_dynexec.cpp:75).
 
@@ -34,8 +34,9 @@ from reak_tpu.planning.queries import PlanningQuery
 
 import reak_tpu
 
-# full-f32 contractions for parity-grade numerics (explicit opt-in; ADVICE r4)
+# full-f32 contractions for parity-grade numerics (explicit opt-in)
 reak_tpu.enable_full_precision()
+reak_tpu.enable_compile_cache()
 
 DEFAULTS = dict(
     planner="rrt",        # rrt | birrt | rrt_star | prm | sbastar | fadprm | rrg

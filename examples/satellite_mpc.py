@@ -31,8 +31,9 @@ from reak_tpu.math import rotations as rot
 
 import reak_tpu
 
-# full-f32 contractions for parity-grade numerics (explicit opt-in; ADVICE r4)
+# full-f32 contractions for parity-grade numerics (explicit opt-in)
 reak_tpu.enable_full_precision()
+reak_tpu.enable_compile_cache()
 
 
 DEFAULTS = dict(
@@ -87,9 +88,8 @@ def main(argv=None):
 
     key = jax.random.PRNGKey(cfg["seed"])
     n = int(cfg["scenarios"])
-    # the round-5 lanes fast path: exact imdt step + analytic error-state
-    # LTV + whole-solve tracking PDIP kernel (ctrl/manifold_lanes) — 13x
-    # the generic AD-linearized composition on TPU (PERF_r05.md)
+    # the lanes fast path: exact imdt step + analytic error-state LTV +
+    # whole-solve tracking PDIP (ctrl/manifold_lanes)
     from reak_tpu.ctrl import manifold_lanes as ml
 
     solver = ml.make_sat_scenario_mpc_lanes(

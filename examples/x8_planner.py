@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """X8 quadrotor kinodynamic planning over a MEAQR control topology.
 
-TPU-native equivalent of the reference's X8 planner app
+JAX-native equivalent of the reference's X8 planner app
 (ref: examples/misc/X8_run_planner.cpp + quadrotor_scene.cpp: quadrotor
 system + MEAQR topology + RRT*/SBA* planner, composed into one workload;
 topology machinery misc/MEAQR_topology.hpp:316, planners
@@ -42,8 +42,9 @@ from reak_tpu.planning.queries import PlanningQuery
 
 import reak_tpu
 
-# full-f32 contractions for parity-grade numerics (explicit opt-in; ADVICE r4)
+# full-f32 contractions for parity-grade numerics (explicit opt-in)
 reak_tpu.enable_full_precision()
+reak_tpu.enable_compile_cache()
 
 DEFAULTS = dict(planner="rrt_star", max_iters=30, seed=0, step_size=2.0,
                 n_grid=48, capacity=4096, output="")

@@ -1,6 +1,6 @@
 // Independent C++ reference solver for the box-constrained LTV-MPC QP.
 //
-// BASELINE.md parity check: the TPU framework's control sequences must match
+// BASELINE.md parity check: the JAX framework's control sequences must match
 // a reference C++ solve to <=1e-4.  This oracle follows the reference's own
 // recipes — condensed QP assembly and a primal-dual interior-point solve in
 // scalar double-precision C++ (the construction of mat_are_solver.hpp /

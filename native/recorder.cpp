@@ -1,6 +1,6 @@
 // Native row-stream recorder/extractor data plane.
 //
-// TPU-native re-implementation of the reference's core/recorders runtime
+// JAX-native re-implementation of the reference's core/recorders runtime
 // (ref: core/recorders/data_record.hpp:159 data_recorder, :334 data_extractor,
 // data_record.cpp threaded row buffering, bin_recorder.hpp:47,
 // ssv_recorder.hpp, tcp_recorder.hpp, udp_recorder.hpp,

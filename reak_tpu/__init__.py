@@ -1,10 +1,10 @@
-"""reak_tpu — a TPU-native multibody dynamics / control / estimation / planning framework.
+"""reak_tpu — a JAX multibody dynamics / control / estimation / planning framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the ReaK platform
 (multibody KTE dynamics, state estimation, optimal control / MPC, and probabilistic
 path planning).  Everything is built around pure functions over explicit pytree
-state, batched with ``vmap``, scaled over device meshes with ``shard_map``/``pjit``,
-and with Pallas kernels on the hot paths.
+state, batched with ``vmap``, and scaled over device meshes with
+``shard_map``/``pjit``.
 
 Layer map (mirrors the capability layers of the reference, SURVEY.md §1):
 
@@ -18,7 +18,6 @@ Layer map (mirrors the capability layers of the reference, SURVEY.md §1):
 - ``reak_tpu.geom``        shapes & batched proximity kernels                 (ref: geometry/*)
 - ``reak_tpu.opt``         optimizers (line search, QP, NLLSQ, NLP)           (ref: core/optimization, core/root_finders)
 - ``reak_tpu.io``          recorders, serialization, config                   (ref: core/recorders, core/serialization)
-- ``reak_tpu.ops``         Pallas TPU kernels for hot paths
 - ``reak_tpu.parallel``    device mesh / collectives helpers
 - ``reak_tpu.errors``      failure detection: status flags + host exceptions  (ref: exception surface, SURVEY §5.3)
 """
@@ -35,20 +34,36 @@ def enable_full_precision() -> None:
 
     The reference framework is double-precision scalar C++ throughout; its
     capabilities (filter consistency, QP duality gaps, proximity signs) assume
-    true-precision contractions.  JAX's default TPU matmul precision rounds
-    f32 operands to bf16 on the MXU (~3 decimal digits), which silently
-    injects ~1e-3 relative error into every jnp.einsum/@ in the dynamics and
-    solver paths.  The framework's hot kernels are lanes-layout VPU code
-    (unaffected), so full f32 for the remaining contractions costs ~nothing
-    and is required for the documented parity bars (BASELINE.md: ≤1e-4 vs
+    true-precision contractions.  On an NVIDIA GPU, XLA may run f32
+    contractions (every jnp.einsum/@ in the dynamics and solver paths) in
+    TF32 on the tensor cores, which keeps ~3 decimal digits of the operands.
+    "highest" keeps them in full f32.  The batched MPC path is mostly
+    elementwise work that uses no tensor cores, so this costs it little; it
+    is required for the documented parity bars (BASELINE.md: ≤1e-4 vs
     oracle).
 
     Explicit opt-in (never run at import time — a library import must not
     change numerics of unrelated co-resident JAX code): call this from your
-    driver, as bench.py and the examples/ CLIs do.  No-ops if the user has
-    already chosen a precision, and under REAK_TPU_FAST_MATMUL=1 (bf16
-    throughput experiments).
+    program's entry point, as bench.py, chip_smoke.py and the examples/ CLIs
+    do.  No-op if
+    the user has already chosen a precision.
     """
-    if _os.environ.get("REAK_TPU_FAST_MATMUL", "") != "1" and \
-            _jax.config.jax_default_matmul_precision is None:
+    if _jax.config.jax_default_matmul_precision is None:
         _jax.config.update("jax_default_matmul_precision", "highest")
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compile cache and return its directory.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already reads it and
+    nothing is set in code.  Otherwise the cache goes to the fixed path
+    ``<checkout>/.jax_cache/`` (the directory is part of the cache key, so
+    it must not move between runs)."""
+    env = _os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    path = _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        ".jax_cache")
+    _jax.config.update("jax_compilation_cache_dir", path)
+    return path

@@ -1,9 +1,9 @@
 """Control & estimation framework.
 
-TPU-native re-design of the reference's ctrl_sys layer
+JAX-native re-design of the reference's ctrl_sys layer
 (ref: ctrl/ctrl_sys/* — state-space system concepts, Kalman-family filters,
 belief states, LQR/LQG) plus the MPC/trajectory-optimization engine that the
-TPU build adds as its north-star workload (BASELINE.md).
+JAX build adds as its north-star workload (BASELINE.md).
 """
 from reak_tpu.ctrl import (systems, qp, mpc, belief, kalman, ukf, invariant,
                            lqg, ss_systems, aug_kalman, predictor, aqr_space)

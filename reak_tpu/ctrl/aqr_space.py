@@ -1,7 +1,7 @@
 """AQR control topologies: IHAQR and MEAQR metric spaces for kinodynamic
 planning.
 
-TPU-native re-design of the reference's AQR planning topologies
+JAX-native re-design of the reference's AQR planning topologies
 (ref: examples/misc/IHAQR_topology.hpp:183 IHAQR_topology,
 misc/MEAQR_topology.hpp:316,895 MEAQR_topology, planners over them
 misc/MEAQR_rrtstar_planner.hpp:78, misc/MEAQR_sbastar_planner.hpp:85).

@@ -1,6 +1,6 @@
 """Augmented-state and two-stage (TSOS) Kalman filters.
 
-TPU-native equivalents of the reference's augmented filters
+JAX-native equivalents of the reference's augmented filters
 (ref: ctrl/ctrl_sys/tsos_aug_kalman_filter.hpp:1-12 two-stage online-steady
 augmented KF, tsos_aug_inv_kalman_filter.hpp invariant variant,
 augmented_sss_concept.hpp:100, augmented_to_state_mapping.hpp,

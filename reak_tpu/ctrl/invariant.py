@@ -1,6 +1,6 @@
 """Invariant / manifold (multiplicative) EKF.
 
-TPU-native re-design of the reference's invariant Kalman filters
+JAX-native re-design of the reference's invariant Kalman filters
 (ref: ctrl/ctrl_sys/invariant_kalman_filter.hpp:278 invariant_kalman_filter_step,
 invariant_system_concept.hpp:209, invariant_kalman_bucy_filter.hpp).
 

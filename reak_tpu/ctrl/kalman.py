@@ -1,6 +1,6 @@
 """Kalman-family filters as pure (belief, u, z) → belief functions.
 
-TPU-native replacement for the reference's free-function filter templates
+JAX-native replacement for the reference's free-function filter templates
 (ref: ctrl/ctrl_sys/kalman_filter.hpp:88 kalman_predict, :144 kalman_update,
 :214 kalman_filter_step, kalman_bucy_filter.hpp, hybrid_kalman_filter.hpp,
 aggregate_kalman_filter.hpp:278, symplectic_kalman_filter.hpp:285).

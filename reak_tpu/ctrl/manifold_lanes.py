@@ -1,25 +1,23 @@
-"""Batch-in-lanes error-state scenario MPC — the free-base TPU speed path.
+"""Batch-in-lanes error-state scenario MPC — the free-base batched path.
 
 ``ctrl/mpc_manifold.py`` is the generic composition (arbitrary discrete map F +
 retraction, AD linearization, batch-FIRST vmap over scenarios).  Its per-
 scenario jacfwd through the discrete step and the batch-first Riccati solve
 leave the reference's *flagship domain* — the free-base satellite/airship
 chaser-target pipeline (ref: estimate_satellite3D.cpp, CRS_planner_dynexec.cpp)
-— an order of magnitude off the fixed-base arm's throughput (VERDICT r4
-weak #1).  This module re-expresses the SAME SQP-on-manifold composition with
-the scenario batch on the LAST axis of every array:
+— far off the fixed-base arm's batched path.  This module re-expresses the
+SAME SQP-on-manifold composition with the scenario batch on the LAST axis of
+every array:
 
   * the nominal rollout runs the EXACT invariant mid-point step
     (ctrl/ss_systems.satellite3D_imdt) in lanes form — quaternion registers
-    (4, B), full VPU lanes, byte-identical math;
+    (4, B), byte-identical math;
   * the tangent-space LTV comes from the ANALYTIC error-state model of the
     rigid body (right-multiplicative body-frame attitude error — the
     invariant-EKF error kinematics, ctrl/invariant.py:45) + exponential-series
     discretization, instead of per-scenario AD through the step;
   * the box-QP is ctrl/riccati_soa.solve_box_mpc_riccati_soa_fused with
-    x_ref = tangent reference errors — which dispatches to the whole-solve
-    tracking Pallas kernel (ops/pdip_whole_pallas.py, with_xref=True) on TPU:
-    every interior-point iteration VMEM-resident, A/B staged once per solve.
+    x_ref = tangent reference errors.
 
 Error-state convention (matches ctrl/ss_systems.sat3D_retraction exactly):
 tangent e = [δp (global), δθ (body, right-mult), δv (global), δω (body)],
@@ -53,7 +51,7 @@ from reak_tpu.math import rot_lanes as rl
 def sat_step_lanes(params: SatelliteParams, dt: float) -> Callable:
     """``step(x (13, B), u (6, B)) → x' (13, B)`` — byte-identical math to
     ctrl/ss_systems.satellite3D_imdt (invariant mid-point on SE(3)), with the
-    scenario batch in VPU lanes."""
+    scenario batch as the last axis."""
     import numpy as np
 
     J_np = np.asarray(params.inertia)
@@ -202,7 +200,6 @@ def make_scenario_mpc_lanes(
     quat_index: int = 3,
     qp_iters: int = 8,
     sqp_iters: int = 2,
-    use_kernels: str = "auto",
     sqp_linesearch: bool = False,
 ):
     """Lanes-layout belief-scenario MPC driver.
@@ -211,8 +208,7 @@ def make_scenario_mpc_lanes(
     sat_step_lanes / sat_error_ltv_lanes).  Same contract as
     ctrl/mpc_manifold.make_scenario_mpc: ``solve(x0s (B, S), x_ref (S,) or
     (H, S), us_init (B, H, m)) → (us (B, H, m), xs (B, H, S))`` — wrap in
-    jax.jit.  Internally everything runs batch-LAST and the box-QP solves
-    through the whole-solve tracking Pallas kernel on TPU.
+    jax.jit.  Internally everything runs batch-LAST.
 
     ``sqp_linesearch``: per-scenario backtracking over α ∈ {1, ½, ¼} on the
     true manifold tracking cost (one exact nominal rollout per candidate) —
@@ -244,12 +240,11 @@ def make_scenario_mpc_lanes(
         return jnp.where(jnp.isfinite(cost), cost, jnp.inf)
 
     def solve(x0s, x_ref, us_init):
-        dtype = x0s.dtype
         x_l = x0s.T                                   # (S, B)
         u_l = jnp.moveaxis(us_init, 0, -1)            # (H, m, B)
         x_ref_b = jnp.broadcast_to(x_ref, (Hh,) + x_ref.shape[-1:])
         xr_l = x_ref_b[..., None]                     # (H, S, 1)
-        e0 = jnp.zeros((d,) + x_l.shape[1:], dtype)
+        e0 = jnp.zeros_like(x_l[:d])  # carries x_l's mesh axes (shard_map)
 
         xs = None
         for _ in range(sqp_iters):
@@ -268,7 +263,7 @@ def make_scenario_mpc_lanes(
             u_new, _ = solve_box_mpc_riccati_soa_fused(
                 A_seq, B_seq, c_seq, problem.Q, problem.QN, problem.R,
                 e0, problem.u_min, problem.u_max, x_ref=e_ref,
-                iters=qp_iters, use_kernels=use_kernels)
+                iters=qp_iters)
             if sqp_linesearch and sqp_iters > 1:
                 best_u = u_l
                 best_J = traj_cost(x_l, u_l, xr_l)
@@ -290,12 +285,11 @@ def make_scenario_mpc_lanes(
 
 def make_sat_scenario_mpc_lanes(params: SatelliteParams, problem: MPCProblem,
                                 dt: float, qp_iters: int = 8,
-                                sqp_iters: int = 2,
-                                use_kernels: str = "auto"):
-    """The BENCH free-base config entry point: satellite error-state scenario
+                                sqp_iters: int = 2):
+    """The free-base satellite entry point: error-state scenario
     MPC, lanes end to end (drop-in for ctrl/mpc_manifold.make_scenario_mpc
     with F = satellite3D_imdt, ret = sat3D_retraction)."""
     return make_scenario_mpc_lanes(
         sat_step_lanes(params, dt), sat_error_ltv_lanes(params, dt),
         problem, tangent_dim=12, quat_index=3, qp_iters=qp_iters,
-        sqp_iters=sqp_iters, use_kernels=use_kernels)
+        sqp_iters=sqp_iters)

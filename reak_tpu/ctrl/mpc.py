@@ -1,6 +1,6 @@
 """Condensed linear(ized) MPC — the north-star workload (BASELINE.md).
 
-There is no MPC in the reference; this engine is the TPU-native composition of
+There is no MPC in the reference; this engine is the JAX-native composition of
 its ingredients (SURVEY.md §7.5): KTE forward dynamics (3.1 call stack) →
 jacfwd linearization (replacing hand Jacobians) → condensed QP over the horizon
 (mat_are/quadratic_programs recipes) → batched interior-point solve.
@@ -9,7 +9,7 @@ Pipeline per scenario (all fused under one jit, vmapped over scenarios):
   1. nominal rollout of the discrete dynamics F(x, u) over horizon H
   2. LTV linearization A_t, B_t along the nominal (one ``vmap``-ed jacfwd)
   3. condensation  x = Sx x0 + Su u + d   (prediction-matrix scan)
-  4. QP:  min ½uᵀ(SuᵀQ̄Su + R̄)u + gᵀu  s.t. box bounds  (MXU-friendly GEMMs)
+  4. QP:  min ½uᵀ(SuᵀQ̄Su + R̄)u + gᵀu  s.t. box bounds  (dense GEMMs)
   5. optional receding-horizon execution via lax.scan
 """
 from __future__ import annotations
@@ -96,7 +96,7 @@ def condense(A_seq, B_seq, c_seq, x0):
 
     X stacks x_1..x_H (H·n), U stacks u_0..u_{H-1} (H·m).
     Built with a scan over the horizon; each step is one (n×n)·(n×Hm) GEMM,
-    which XLA maps to the MXU (batched over scenarios via vmap).
+    batched over scenarios via vmap.
     """
     H, n, m = B_seq.shape[0], A_seq.shape[-1], B_seq.shape[-1]
     dtype = A_seq.dtype
@@ -183,9 +183,9 @@ def solve(
 
     ``method``:
       - "riccati" (default): block-sparse interior point — KKT systems solved
-        by Riccati recursion, O(H·(n+m)³).  The fast path on TPU.
+        by Riccati recursion, O(H·(n+m)³).  The fast path.
       - "condensed": dense condensed QP (prediction matrices + PDIP with
-        (H·m)³ Cholesky).  MXU-heavy; useful as cross-check and for short
+        (H·m)³ Cholesky).  Matmul-heavy; useful as cross-check and for short
         horizons.
     """
     Hh, m = problem.horizon, problem.R.shape[-1]
@@ -234,21 +234,15 @@ def solve(
 
 def make_kte_mpc(spec, problem: MPCProblem, dt: float, qp_iters: int = 8,
                  sqp_iters: int = 1, qp_layout: str = "lanes",
-                 rollout: str = "auto", sqp_linesearch: bool = True):
-    """Fused batched MPC solver for a fixed-base KTE chain — the TPU fast path.
+                 rollout: str = "lanes", sqp_linesearch: bool = True):
+    """Fused batched MPC solver for a fixed-base KTE chain — the batched
+    fast path.
 
     Composes the batch-in-lanes rollout+linearization with the Riccati
     interior-point QP; returns ``solve(x0s (B, 2nv), us_init (B, H, m))
     → (us (B, H, m), xs (B, H, 2nv))``.  Wrap in jax.jit.
 
     ``rollout``:
-      - "auto" (default): "fused" when the batch tiles the Pallas kernel
-        (multiple of 512) on a TPU backend, else "lanes" — so the same
-        solver object serves the TPU bench and small-batch/CPU callers.
-      - "fused": step core in ONE Pallas kernel (ops/kte_core_pallas.py —
-        the SURVEY §2.24 fused assembly+factor kernel), series tail in XLA,
-        lanes-native output.  The TPU bench path; batch must be a multiple
-        of the kernel tile (512).
       - "lanes" (default): dense-lanes rollout (kte/lanes.py) — identical
         math to the register form but a ~100× smaller HLO graph (seconds
         instead of minutes of XLA compile) and lanes-native output, so the
@@ -258,11 +252,10 @@ def make_kte_mpc(spec, problem: MPCProblem, dt: float, qp_iters: int = 8,
 
     ``qp_layout``:
       - "lanes" (default): the whole PDIP runs batch-in-lanes
-        (ctrl/riccati_soa.py) — tiny-matrix products stay on full-width VPU
-        tiles and the Schur solves hit the Pallas kernel without layout
-        round-trips.  The TPU speed path.
+        (ctrl/riccati_soa.py) — every tiny-matrix product is an elementwise
+        operation over the scenario batch, with no layout round-trips.
       - "vmap": per-scenario solver under jax.vmap (ctrl/riccati.py) —
-        batch-first layout; cross-check / CPU path.
+        batch-first layout; cross-check path.
 
     ``sqp_linesearch`` (active only when sqp_iters > 1): per-scenario
     backtracking over α ∈ {1, ½, ¼} on the TRUE nonlinear trajectory cost
@@ -270,7 +263,7 @@ def make_kte_mpc(spec, problem: MPCProblem, dt: float, qp_iters: int = 8,
     multi-pass SQP from diverging when a QP solution leaves the LTV model's
     validity region (full-step SQP at coarse dt can re-linearize about an
     unstable rollout and NaN).  Costs 3 nominal rollouts per SQP pass;
-    the flagship sqp_iters=1 bench path is unaffected.
+    the flagship sqp_iters=1 path is unaffected.
 
     Guarantee and semantics: the accepted sequence's TRUE (RK4) cost is
     never worse than the previous iterate's.  On open-loop-sensitive
@@ -289,21 +282,8 @@ def make_kte_mpc(spec, problem: MPCProblem, dt: float, qp_iters: int = 8,
 
     H = problem.horizon
 
-    if rollout in ("lanes", "fused", "auto") and qp_layout == "lanes":
-        from reak_tpu.ops import kte_core_pallas as kcp
-
-        roll_fused = lanes.make_rollout_ltv_fullfused(spec, dt, H)
-        roll_lanes = lanes.make_rollout_ltv_lanes(spec, dt, H)
-
-        def pick_roll(B):
-            if rollout == "lanes":
-                return roll_lanes
-            tiled = B % kcp._TILE == 0
-            on_tpu = jax.default_backend() == "tpu"
-            if rollout == "fused":
-                return roll_fused if tiled else roll_lanes
-            return roll_fused if (tiled and (on_tpu or kcp.FORCE_INTERPRET)) \
-                else roll_lanes
+    if rollout == "lanes" and qp_layout == "lanes":
+        roll_l = lanes.make_rollout_ltv_lanes(spec, dt, H)
 
         def to_lanes(ref, width):
             """(width,) | (H, width) | (B, H, width) reference → lanes."""
@@ -332,11 +312,9 @@ def make_kte_mpc(spec, problem: MPCProblem, dt: float, qp_iters: int = 8,
             return jnp.where(jnp.isfinite(cost), cost, jnp.inf)
 
         def solve_batch_lanes(x0s, us_init, x_ref=None, u_ref=None):
-            # tracking MPC (x_ref/u_ref) rides the SAME whole-solve Pallas
-            # kernel as the regulator path (ops/pdip_whole_pallas
-            # with_xref/with_uref; ref tracking recursion
+            # tracking MPC (x_ref/u_ref) rides the SAME scan-fused PDIP as
+            # the regulator path (ref tracking recursion
             # mat_are_solver.hpp:1449 + lqr_controllers.hpp:58)
-            roll_l = pick_roll(x0s.shape[0])
             xr_l = to_lanes(x_ref, 2 * spec.nv)
             ur_l = to_lanes(u_ref, problem.R.shape[-1])
             us = us_init  # (B, H, m)

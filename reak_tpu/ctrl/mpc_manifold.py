@@ -7,7 +7,7 @@ systems (ref: ss_systems/satellite_invar_models.hpp:296 satellite3D_imdt_sys),
 Gaussian belief sampling (ref: ctrl_sys/gaussian_belief_state.hpp:491
 sample_gaussian_point) and the belief predictor
 (ref: ctrl_sys/belief_state_predictor.hpp:79).  Here they compose into one
-TPU-native pipeline:
+JAX-native pipeline:
 
     IEKF posterior belief  →  tangent-space scenario sampling (fold_in keys)
     →  per-scenario error-state LTV linearization along a nominal rollout
@@ -138,7 +138,7 @@ def make_scenario_mpc(
 ):
     """Batched scenario solver: ``solve(x0s (B, n), x_ref, us_init (B, H, m))
     → (us (B, H, m), xs (B, H, n))``.  vmap over scenarios; wrap in jax.jit.
-    This is the BENCH free-base config entry point."""
+    This is the generic free-base scenario entry point."""
 
     def solve_batch(x0s, x_ref, us_init):
         def one(x0, u0):
@@ -155,17 +155,15 @@ def make_scenario_mpc(
 
 def make_kte_scenario_mpc(spec, problem: MPCProblem, dt: float,
                           actuated=None, qp_iters: int = 8,
-                          sqp_iters: int = 2, use_kernels: str = "auto"):
-    """Scenario MPC for ANY KTE chain, routed to the TPU fast path:
+                          sqp_iters: int = 2):
+    """Scenario MPC for ANY KTE chain, routed to the batched fast path:
 
     * free-base (quaternion) chains → the lanes error-state SQP
       (kte/lanes.make_kte_manifold_lanes + ctrl/manifold_lanes — exact RK4
-      nominal, analytic tangent LTV, whole-solve tracking PDIP kernel);
+      nominal, analytic tangent LTV, whole-solve tracking PDIP);
     * fixed-base chains → the flagship lanes pipeline (ctrl/mpc.make_kte_mpc).
 
-    Both return ``solve(x0s (B, n_state), x_ref, us_init (B, H, m))`` —
-    the reference's flagship satellite/chaser domain now runs the same speed
-    path as the fixed-base arm (closes VERDICT r4 weak #1).
+    Both return ``solve(x0s (B, n_state), x_ref, us_init (B, H, m))``.
     """
     if spec.has_free_base:
         from reak_tpu.kte.lanes import make_kte_manifold_lanes
@@ -174,7 +172,7 @@ def make_kte_scenario_mpc(spec, problem: MPCProblem, dt: float,
         step, ltv = make_kte_manifold_lanes(spec, dt, actuated=actuated)
         return make_scenario_mpc_lanes(
             step, ltv, problem, tangent_dim=2 * spec.nv, quat_index=3,
-            qp_iters=qp_iters, sqp_iters=sqp_iters, use_kernels=use_kernels)
+            qp_iters=qp_iters, sqp_iters=sqp_iters)
 
     from reak_tpu.ctrl import mpc as _mpc
 

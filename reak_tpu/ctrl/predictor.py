@@ -1,6 +1,6 @@
 """Belief-state prediction over a horizon.
 
-TPU-native equivalent of the reference's predicted-trajectory machinery
+JAX-native equivalent of the reference's predicted-trajectory machinery
 (ref: ctrl/ctrl_sys/belief_state_predictor.hpp:79 belief_predicted_trajectory,
 discrete_ss_predicted_traj.hpp, maximum_likelihood_mapping.hpp), which grows a
 lazy waypoint list of predicted beliefs one step at a time.  Here the whole

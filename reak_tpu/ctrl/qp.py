@@ -1,13 +1,13 @@
 """Batched convex QP solvers with static iteration counts.
 
-TPU-native replacement for the reference's QP toolbox
+JAX-native replacement for the reference's QP toolbox
 (ref: core/optimization/quadratic_programs.hpp:77 null-space method, :313
 projected CG, mehrotra_method.hpp:269 Mehrotra predictor-corrector).
 
 Primary workhorse: a Mehrotra-style primal-dual interior-point method for
 box-constrained QPs — the condensed-MPC core.  Everything is straight-line
 batched linear algebra (Cholesky + triangular solves), so ``vmap`` over
-thousands of scenarios maps directly onto the MXU.
+thousands of scenarios becomes batched dense linear algebra.
 """
 from __future__ import annotations
 

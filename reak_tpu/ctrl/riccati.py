@@ -1,14 +1,14 @@
 """Riccati-recursion MPC solver: O(H·(n+m)³) block-sparse KKT solves.
 
 The condensed QP (ctrl/mpc.py) factors a dense (H·m)² Hessian per interior-
-point iteration — an O((Hm)³) batched Cholesky that dominates solve time on
-TPU.  This module solves the SAME box-constrained LTV-MPC problem with the
+point iteration — an O((Hm)³) batched Cholesky that dominates its solve
+time.  This module solves the SAME box-constrained LTV-MPC problem with the
 KKT systems solved by backward Riccati recursion instead: per interior-point
 iteration one matrix backward pass (tiny m×m solves, fully unrolled) + cheap
 vector recursions, all inside fused ``lax.scan`` loops over the horizon.
 
-For H=50, n=12, m=6 this is ~40× less arithmetic and ~6× faster wall-clock
-per iteration at large scenario batches than the condensed path.
+For H=50, n=12, m=6 this is ~40× less arithmetic per iteration than the
+condensed path.
 
 (Reference lineage: the recursion is the DARE scan of mat_are_solver.hpp
 specialised to finite horizon; the barrier handling mirrors the Mehrotra QP
@@ -21,7 +21,7 @@ from typing import NamedTuple, Optional
 import jax
 import jax.numpy as jnp
 
-from reak_tpu.ops.chol_lanes import chol_solve_auto
+from reak_tpu.math.linalg import small_chol_solve
 
 
 class LQRBackward(NamedTuple):
@@ -34,10 +34,8 @@ def lqr_backward(A_seq, B_seq, Q, QN, R_seq):
     """Matrix backward Riccati pass for the LTV problem with per-step input
     cost R_seq (H, m, m).  Returns gains and cached per-step matrices so
     multiple right-hand sides can be solved with vector-only passes.
-
-    The m×m Schur-complement solves dispatch through ``chol_solve_auto``:
-    under the scenario-batch vmap of make_kte_mpc they run in the Pallas
-    batch-in-lanes kernel on TPU (ops/chol_lanes.py)."""
+    The m×m Schur-complement solves are unrolled Cholesky recurrences
+    (math/linalg.small_chol_solve)."""
     H = A_seq.shape[0]
 
     def body(V, inp):
@@ -45,7 +43,7 @@ def lqr_backward(A_seq, B_seq, Q, QN, R_seq):
         VB = V @ Bt  # (n, m)
         G = Rt + Bt.T @ VB  # (m, m)
         F = VB.T @ At  # (m, n) = B'V A
-        K = chol_solve_auto(G, F)  # (m, n)
+        K = small_chol_solve(G, F)  # (m, n)
         Vn = Q + At.T @ V @ At - F.T @ K
         Vn = 0.5 * (Vn + Vn.T)
         return Vn, (K, F, G)
@@ -74,7 +72,7 @@ def lqr_solve_rhs(bw: LQRBackward, A_seq, B_seq, r_seq, x0):
     def backward(v, inp):
         At, Bt, rt, K, G = inp
         w = rt + Bt.T @ v  # (m,)
-        k = chol_solve_auto(G, w[..., None])[..., 0]
+        k = small_chol_solve(G, w[..., None])[..., 0]
         vn = At.T @ v - K.T @ w
         return vn, k
 

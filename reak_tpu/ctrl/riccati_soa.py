@@ -1,14 +1,13 @@
-"""Batch-in-lanes (SoA) Riccati interior-point MPC — the TPU speed path.
+"""Batch-in-lanes (SoA) Riccati interior-point MPC — the batched speed path.
 
 `ctrl/riccati.py` solves each scenario's KKT systems with batch-FIRST arrays
 ((B, n, n) via vmap): every tiny 12×12/6×6 product becomes a batched matmul
-whose operand tiles pad the MXU's 128×128 systolic array ~100× (SURVEY §2.24
-hot-kernel note).  This module re-expresses the SAME interior-point recursion
+of tiny tiles.  This module re-expresses the SAME interior-point recursion
 with the scenario batch as the LAST axis of every array ((H, n, n, B)) and
 every small contraction as an explicit broadcast-multiply-reduce over the
-tiny dims — XLA lowers each term to full-width (8, 128) VPU tiles, exactly
-like the kte.soa rollout, and the m×m Schur solves hit the Pallas
-batch-in-lanes Cholesky kernel (ops/chol_lanes.py) with NO layout round-trips.
+tiny dims, so each term is a full-width elementwise operation over the
+batch that XLA fuses, and the m×m Schur solves are unrolled Cholesky
+recurrences in the same layout.
 
 Numerics are identical to ctrl/riccati.py (same Mehrotra predictor-corrector,
 validated against it in tests/test_riccati_soa.py).
@@ -21,16 +20,14 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from reak_tpu.ops import chol_lanes
-
 
 # ---------------------------------------------------------------------------
-# lanes-last small-matrix algebra: operands (i, k, B) with B on VPU lanes
+# lanes-last small-matrix algebra: operands (i, k, B), batch B last
 # ---------------------------------------------------------------------------
 
 
 def _mm(X, Y):
-    """(i, k, B) @ (k, j, B) → (i, j, B), contraction unrolled on the VPU."""
+    """(i, k, B) @ (k, j, B) → (i, j, B), elementwise over the batch."""
     return jnp.sum(X[:, :, None, :] * Y[None, :, :, :], axis=1)
 
 
@@ -50,19 +47,9 @@ def _mTv(X, v):
 
 
 def _chol_solve_lanes(G, rhs):
-    """SPD solve in lanes layout: G (n, n, B), rhs (n, k, B) → (n, k, B).
-
-    Dispatches to the Pallas kernel when the lane batch tiles (8, 128);
-    otherwise runs the same unrolled recurrence as jnp ops (CPU tests,
-    ragged batches)."""
+    """SPD solve in lanes layout: G (n, n, B), rhs (n, k, B) → (n, k, B),
+    as a trace-time unrolled Cholesky recurrence of elementwise ops."""
     n = G.shape[0]
-    B = G.shape[-1]
-    on_tpu = jax.default_backend() == "tpu"
-    if (chol_lanes.FORCE_INTERPRET or on_tpu) and B % chol_lanes._TILE == 0 \
-            and n <= 16:
-        return chol_lanes.solve_lanes_multi(
-            G, rhs, interpret=chol_lanes.FORCE_INTERPRET)
-    # unrolled fallback (identical math to the kernel)
     L = [[None] * n for _ in range(n)]
     inv_d = [None] * n
     for j in range(n):
@@ -181,7 +168,7 @@ def qp_gradient_soa(A_seq, B_seq, c_seq, Q, QN, R, x0, us, x_ref=None,
 
 def solve_box_mpc_riccati_soa_fused(A_seq, B_seq, c_seq, Q, QN, R, x0, lb,
                                     ub, x_ref=None, u_ref=None,
-                                    iters: int = 8, use_kernels: str = "auto"):
+                                    iters: int = 8):
     """Scan-fused Mehrotra PDIP — same math as solve_box_mpc_riccati_soa,
     4 sequential scans per iteration instead of 7:
 
@@ -193,59 +180,13 @@ def solve_box_mpc_riccati_soa_fused(A_seq, B_seq, c_seq, Q, QN, R, x0, lb,
         index with compatible data flow — one fused reverse scan computes
         (grad_t, K_t, G_t, k_aff_t) together.
 
-    On a latency-bound TPU pipeline (tiny per-step operands, 50-step chains)
-    sequential-scan count is the cost model; this cuts the PDIP critical
-    path by ~43%.  Numerics identical to the unfused solver (asserted at
-    f64 in tests/test_riccati_soa.py).
-
-    ``use_kernels="auto"`` runs the ENTIRE solve as ONE whole-solve Pallas
-    kernel (ops/pdip_whole_pallas.py — all interior-point iterations with
-    the full-horizon LTV data, gains, and primal/dual state resident in
-    VMEM; A/B are read from HBM once per solve instead of 4× per
-    iteration) when on TPU with a 128-aligned batch and no references;
-    "passes" keeps the round-3 per-pass kernels (ops/riccati_bwd_pallas.py);
-    "never" forces the lax.scan path (CPU/tests)."""
-    from reak_tpu.ops import riccati_bwd_pallas as rbp
-    from reak_tpu.ops import pdip_whole_pallas as pwp
-
-    with_xref = x_ref is not None
-    with_uref = u_ref is not None
-    whole_ok = (
-        use_kernels in ("auto", "whole")
-        and A_seq.ndim == 4
-        and A_seq.shape[-1] % pwp._TILE == 0
-        and (jax.default_backend() == "tpu" or pwp.FORCE_INTERPRET)
-        # whole-horizon VMEM residency bounds H; longer horizons keep the
-        # streaming per-pass kernels
-        and pwp.fits_vmem(A_seq.shape[0], A_seq.shape[1],
-                          B_seq.shape[2], tile=pwp._TILE,
-                          with_xref=with_xref, with_uref=with_uref)
-    )
-    if whole_ok:
-        whole = pwp.make_whole_pdip(A_seq.shape[0], A_seq.shape[1],
-                                    B_seq.shape[2], iters, tile=pwp._TILE,
-                                    with_xref=with_xref,
-                                    with_uref=with_uref)
-        refs = ([x_ref] if with_xref else []) + ([u_ref] if with_uref else [])
-        return whole(A_seq, B_seq, c_seq, *refs, x0, Q, QN, R, lb, ub)
-
+    With tiny per-step operands and 50-step chains the number of dependent
+    scan stages is the cost model; this cuts the PDIP critical path by ~43%.
+    Numerics identical to the unfused solver (asserted at f64 in
+    tests/test_riccati_soa.py)."""
     H = A_seq.shape[0]
     m = B_seq.shape[2]
-    n = A_seq.shape[1]
     dtype = A_seq.dtype
-    B_lanes = A_seq.shape[-1]
-    kernel_ok = (
-        use_kernels != "never"
-        and A_seq.ndim == 4
-        and B_lanes % rbp._TILE == 0
-        and (jax.default_backend() == "tpu" or rbp.FORCE_INTERPRET)
-    )
-    _t = rbp._TILE
-    bwd_kernel = (rbp.make_fused_backward(H, n, m, tile=_t) if kernel_ok
-                  else None)
-    vbwd_kernel = (rbp.make_vector_backward(H, n, m, tile=_t) if kernel_ok
-                   else None)
-    fwd_kernel = (rbp.make_forward(H, n, m, tile=_t) if kernel_ok else None)
     LB = jnp.broadcast_to(lb.astype(dtype)[None, :, None],
                           (H, m) + A_seq.shape[3:])
     UB = jnp.broadcast_to(ub.astype(dtype)[None, :, None],
@@ -303,17 +244,13 @@ def solve_box_mpc_riccati_soa_fused(A_seq, B_seq, c_seq, Q, QN, R, x0, lb,
 
         u_eff = u if u_ref is None else u - u_ref
         v0 = jnp.zeros_like(xs[0])
-        if bwd_kernel is not None:
-            grad, Ks, Gs, ks_aff = bwd_kernel(A_seq, B_seq, qs, u_eff, D,
-                                              Q, QN, R)
-        else:
-            lam0 = jnp.zeros_like(xs[0])
-            V0 = QN[..., None] + jnp.zeros_like(A_seq[0])
-            _, (grad_r, Ks_r, Gs_r, kaff_r) = jax.lax.scan(
-                bwd, (lam0, V0, v0),
-                (A_seq[::-1], B_seq[::-1], qs[::-1], u_eff[::-1], D[::-1]))
-            grad = grad_r[::-1]
-            Ks, Gs, ks_aff = Ks_r[::-1], Gs_r[::-1], kaff_r[::-1]
+        lam0 = jnp.zeros_like(xs[0])
+        V0 = QN[..., None] + jnp.zeros_like(A_seq[0])
+        _, (grad_r, Ks_r, Gs_r, kaff_r) = jax.lax.scan(
+            bwd, (lam0, V0, v0),
+            (A_seq[::-1], B_seq[::-1], qs[::-1], u_eff[::-1], D[::-1]))
+        grad = grad_r[::-1]
+        Ks, Gs, ks_aff = Ks_r[::-1], Gs_r[::-1], kaff_r[::-1]
         r_dual = grad - zl + zu
 
         mu = (jnp.sum(sl * zl, axis=(0, 1)) + jnp.sum(su * zu, axis=(0, 1))) \
@@ -327,10 +264,7 @@ def solve_box_mpc_riccati_soa_fused(A_seq, B_seq, c_seq, Q, QN, R, x0, lb,
             return dx1, du
 
         dx0 = jnp.zeros_like(x0)
-        if fwd_kernel is not None:
-            du_aff, _ = fwd_kernel(A_seq, B_seq, Ks, ks_aff, dx0)
-        else:
-            _, du_aff = jax.lax.scan(fwd, dx0, (A_seq, B_seq, Ks, ks_aff))
+        _, du_aff = jax.lax.scan(fwd, dx0, (A_seq, B_seq, Ks, ks_aff))
         dzl_aff = -zl - (zl / sl) * du_aff
         dzu_aff = -zu + (zu / su) * du_aff
 
@@ -354,13 +288,10 @@ def solve_box_mpc_riccati_soa_fused(A_seq, B_seq, c_seq, Q, QN, R, x0, lb,
             vn = _mTv(At, v) - _mTv(K, w)
             return vn, k
 
-        if vbwd_kernel is not None:
-            ks2 = vbwd_kernel(A_seq, B_seq, rhs, Ks, Gs)
-        else:
-            _, ks2_r = jax.lax.scan(
-                bwd2, v0, (A_seq[::-1], B_seq[::-1], rhs[::-1], Ks[::-1],
-                           Gs[::-1]))
-            ks2 = ks2_r[::-1]
+        _, ks2_r = jax.lax.scan(
+            bwd2, v0, (A_seq[::-1], B_seq[::-1], rhs[::-1], Ks[::-1],
+                       Gs[::-1]))
+        ks2 = ks2_r[::-1]
 
         # ---- corrector forward: du AND the trajectory delta dxs
         def fwd2(dx, inp):
@@ -369,10 +300,7 @@ def solve_box_mpc_riccati_soa_fused(A_seq, B_seq, c_seq, Q, QN, R, x0, lb,
             dx1 = _mv(At, dx) + _mv(Bt, du)
             return dx1, (du, dx1)
 
-        if fwd_kernel is not None:
-            du, dxs = fwd_kernel(A_seq, B_seq, Ks, ks2, dx0)
-        else:
-            _, (du, dxs) = jax.lax.scan(fwd2, dx0, (A_seq, B_seq, Ks, ks2))
+        _, (du, dxs) = jax.lax.scan(fwd2, dx0, (A_seq, B_seq, Ks, ks2))
         dzl = (rc_l - zl * du) / sl
         dzu = (rc_u + zu * du) / su
 

@@ -1,6 +1,6 @@
 """Concrete vehicle state-space systems: satellite, airship, quadrotor.
 
-TPU-native re-design of the reference's ctrl/ss_systems layer
+JAX-native re-design of the reference's ctrl/ss_systems layer
 (ref: ss_systems/satellite_basic_models.hpp:70 satellite3D_lin_dt_system,
 satellite_invar_models.hpp:296,406,514 invariant mid-point + gyro/IMU variants,
 near_buoyant_airship_models.hpp:72,342,617,739 augmented-parameter airships,
@@ -164,7 +164,7 @@ def make_h_sonars_in_room(room_lower, room_upper, sonar_pos, sonar_dir):
     :171 get_sonar_distance_to_room — the indoor-airship grounding
     measurement of the Tryphon blimp experiments).
 
-    TPU-native form: the reference's per-surface branch cascade becomes one
+    JAX-native form: the reference's per-surface branch cascade becomes one
     masked minimum over the 6 slab intersections, vectorized over all N
     sonars — no data-dependent control flow, vmappable over scenario
     batches.  A ray that exits the box (no positive hit) reports 0, matching

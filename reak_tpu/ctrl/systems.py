@@ -1,6 +1,6 @@
 """State-space systems: linearization, discretization, generic LTI/LTV types.
 
-TPU-native replacement for the reference's concept-driven system templates
+JAX-native replacement for the reference's concept-driven system templates
 (ref: ctrl/ctrl_sys/state_space_sys_concept.hpp:112, discrete_sss_concept.hpp,
 linear_ss_system_concept.hpp:189, lti_ss_system.hpp:54, lti_discrete_sys.hpp,
 discretized_lti_sys.hpp:64, num_int_dtnl_system.hpp:55).
@@ -115,8 +115,8 @@ def kte_ltv_linearizer(spec, dt: float, actuated=None, order: int = 4) -> Callab
     def linearizer(xs, us):
         # scan over the horizon (not vmap): under an outer scenario-vmap this
         # becomes scan-of-batched-steps, keeping live jacfwd intermediates
-        # bounded by ONE step instead of H× (tiny trailing dims pad ~14× on
-        # TPU tiles, so H× materialization OOMs at large scenario batches)
+        # bounded by ONE step instead of H× (H× materialization runs out of
+        # memory at large scenario batches)
         def body(_, xu):
             return None, lin_one(*xu)
 
@@ -213,7 +213,7 @@ def euler_discrete(f: Callable, dt: float) -> Callable:
 def semi_implicit_kte(spec, dt: float, actuated=None) -> Callable:
     """Linearly-implicit (IMEX) one-step map for STIFF KTE chains —
     flexible beams and other high-stiffness joint-spring chains
-    (ref: flexible_beam.hpp:52 element; stepping strategy is new, TPU-native:
+    (ref: flexible_beam.hpp:52 element; stepping strategy is new, JAX-native:
     unconditional stability for the linear spring/damper part at any dt,
     explicit treatment of the slow nonlinear terms).
 

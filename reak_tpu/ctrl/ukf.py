@@ -1,7 +1,7 @@
 """Unscented Kalman filter (ref: ctrl/ctrl_sys/unscented_kalman_filter.hpp:65).
 
 Sigma points via Cholesky of the covariance; the whole propagation is one
-vmapped evaluation of the system function — ideal for the TPU (2n+1 parallel
+vmapped evaluation of the system function — ideal for an accelerator (2n+1 parallel
 rollouts per belief, further vmapped over scenario batches).
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Failure detection: device-side status flags + host-side raising wrappers.
 
-TPU-native replacement for the reference's exception surface
+JAX-native replacement for the reference's exception surface
 (ref: ctrl/mbd_kte/manipulator_model.cpp:351-354 ``singularity_error`` on a
 singular mass matrix; core/integrators/integration_exceptions.hpp:38,82,136
 ``impossible_integration`` / ``untolerable_integration`` /

@@ -1,6 +1,6 @@
 """Geometry: shape primitives + batched proximity (signed distance) kernels.
 
-TPU-native re-design of the reference's geometry/proximity libraries
+JAX-native re-design of the reference's geometry/proximity libraries
 (ref: geometry/shapes/*.hpp — box/sphere/cylinder/capped_cylinder/plane/
 rectangle/circle/capped_rectangle; geometry/proximity/prox_*_*.hpp pair
 kernels, proxy_query_model.hpp:51-196 aggregate models,

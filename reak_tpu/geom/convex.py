@@ -1,6 +1,6 @@
 """Exact convex-pair distances for the "hard" shape pairs.
 
-TPU-native replacement for the reference's NLP support-function fallback
+JAX-native replacement for the reference's NLP support-function fallback
 (ref: geometry/proximity/prox_fundamentals_3D.hpp:57-264
 findProximityByGJKEPA / NLP proximity, used for box-box, cylinder-cylinder,
 box-cylinder — the pairs with no closed form).
@@ -10,7 +10,7 @@ Method: alternating closed-form projections between the two convex sets
   p ← proj_A(q),  q ← proj_B(p)
 converges linearly to a closest-point pair for separated convex sets and to
 a common point (distance 0) for intersecting ones.  Fixed iteration count →
-jit/vmap-friendly; every step is a handful of fused VPU ops per lane.
+jit/vmap-friendly; every step is a handful of fused elementwise ops.
 """
 from __future__ import annotations
 

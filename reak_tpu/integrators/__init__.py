@@ -1,6 +1,6 @@
 """ODE integrators as XLA scans.
 
-TPU-native replacement for the reference's integrator hierarchy
+JAX-native replacement for the reference's integrator hierarchy
 (ref: core/integrators/integrator.hpp:102,153, fixed_step_integrators.hpp,
 variable_step_integrators.hpp, pred_corr_integrators.hpp and the per-topology
 re-packagings in ctrl/sys_integrators/*).

@@ -1,6 +1,6 @@
 """Adaptive (embedded-pair) integrators with bounded step-rejection loops.
 
-TPU-native re-design of the reference's variable-step integrators
+JAX-native re-design of the reference's variable-step integrators
 (ref: core/integrators/variable_step_integrators.hpp:66 fehlberg45,
 :251 dormand_prince45).  XLA needs static control flow, so:
 

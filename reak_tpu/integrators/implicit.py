@@ -6,7 +6,7 @@ variable_step_integrators.hpp) — which is why its own stiff-IVP test suite
 (ref: core/integrators/unit_test_integrators.cpp:250-280) generates reference
 trajectories but asserts nothing: none of its integrators can traverse
 Pollution (λ ~ −1e12), the Ring Modulator (C_s = 2e-12), ROBER (t_f = 1e11)
-or E5 (t_f = 1e13).  This module closes that capability gap TPU-natively:
+or E5 (t_f = 1e13).  This module closes that capability gap natively in JAX:
 
 * **Rosenbrock 2(3)** (Shampine–Reichelt, the ode23s scheme): L-stable,
   linearly implicit — ONE Jacobian (jax.jacfwd) + ONE LU factorization +

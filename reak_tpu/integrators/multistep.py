@@ -1,6 +1,6 @@
 """Predictor-corrector multistep integrators as scan carries.
 
-TPU-native re-design of the reference's predictor-corrector family
+JAX-native re-design of the reference's predictor-corrector family
 (ref: core/integrators/pred_corr_integrators.hpp:64 adamsBM3, :301 adamsBM5,
 :542 hamming_mod, :821 hamming_iter_mod).  The derivative history lives in the
 scan carry; the first steps bootstrap with RK4.

@@ -1,6 +1,6 @@
 """Interpolators, paths & trajectories.
 
-TPU-native re-design of the reference's interpolation library
+JAX-native re-design of the reference's interpolation library
 (ref: ctrl/interpolation/* — linear_interp.hpp:179, cubic_hermite_interp.hpp:217,
 quintic_hermite_interp.hpp:346, sustained_velocity_pulse.hpp:176,
 sustained_acceleration_pulse.hpp:220, waypoint_container.hpp,

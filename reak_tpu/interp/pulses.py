@@ -6,7 +6,7 @@ velocity profiles with NONZERO boundary velocities;
 sustained_acceleration_pulse.hpp:220, sustained_acceleration_pulse_Ndof_detail.cpp
 — jerk-limited S-curve profiles, root-solver assisted)
 
-TPU-native design, not a translation of the reference's case cascades:
+JAX-native design, not a translation of the reference's case cascades:
 
 * **SVP** — closed form.  All candidate peak velocities (saturated cruise,
   triangular up, triangular down; quadratic/linear roots for the timed

@@ -1,6 +1,6 @@
 """I/O: tabular data recorders, scene serialization, config system.
 
-TPU-native replacement for the reference's cross-cutting I/O layers
+JAX-native replacement for the reference's cross-cutting I/O layers
 (ref: core/recorders/data_record.hpp:159,334 + ssv/tsv/bin/vector/tcp/udp
 back-ends; core/serialization/* archives; Boost.program_options bundles).
 """

@@ -1,6 +1,6 @@
 """Config/flag system: nested dataclass-ish configs from CLI args or files.
 
-TPU-native replacement for the reference's Boost.program_options bundles
+JAX-native replacement for the reference's Boost.program_options bundles
 (ref: core/recorders/data_record_po.hpp, ctrl/ss_systems/satellite_modeling_po.hpp:289,
 ctrl/path_planning/path_planner_options_po.hpp:48 — each domain exposes
 ``get_*_po_desc`` / ``get_*_from_po``; complex configs are serialized objects

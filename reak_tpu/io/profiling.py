@@ -1,6 +1,6 @@
 """Tracing/profiling: section timers + device trace capture.
 
-TPU-native equivalent of the reference's observability hooks (SURVEY.md §5.1):
+JAX-native equivalent of the reference's observability hooks (SURVEY.md §5.1):
 exec_time_profiler (ref: core/base/exec_time_profiler.hpp:37-80 — markTime
 IDs → per-interval microsecond rows to a file) and the planner timing
 reporters.  Device-side work is profiled with the JAX profiler (XLA traces

@@ -1,6 +1,6 @@
 """Row-stream recorders/extractors: named columns, buffered async sinks.
 
-TPU-native re-design of the reference's data_recorder/data_extractor protocol
+JAX-native re-design of the reference's data_recorder/data_extractor protocol
 (ref: core/recorders/data_record.hpp:159 data_recorder, :334 data_extractor,
 ssv_recorder.hpp, tsv_recorder.hpp, bin_recorder.hpp:47, vector_recorder.hpp,
 tcp_recorder.hpp, udp_recorder.hpp, network_recorder.hpp:51 + .cpp:28,128).

@@ -1,6 +1,6 @@
 """Scene/model serialization: typed JSON documents with a type registry.
 
-TPU-native replacement for the reference's RTTI + archive system
+JAX-native replacement for the reference's RTTI + archive system
 (ref: core/rtti/so_type.hpp:642 type repo, core/serialization/xml_archiver.hpp,
 bin_archiver.hpp, protobuf_archiver.hpp, objtree_archiver.hpp, scheme_builder).
 

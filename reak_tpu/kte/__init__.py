@@ -1,4 +1,4 @@
-"""KTE multibody dynamics, TPU-native.
+"""KTE multibody dynamics, JAX-native.
 
 Re-design of the reference's Kinetostatic Transmission Element machinery
 (ref: ctrl/mbd_kte/kte_map.hpp:85-106, kte_map_chain.hpp:49,

@@ -1,6 +1,6 @@
 """Chain kinematics & dynamics as pure functions.
 
-This is the TPU-native equivalent of the reference's doMotion/clearForce/doForce
+This is the JAX-native equivalent of the reference's doMotion/clearForce/doForce
 sweeps + mass-matrix aggregation + Cholesky solve
 (ref: ctrl/mbd_kte/kte_map_chain.hpp:71-89, mass_matrix_calculator.cpp:80-287,
 manipulator_model.cpp:292-355 computeStateRate).

@@ -1,6 +1,6 @@
 """Task-space and virtual-model-control forces on KTE chains.
 
-TPU-native equivalents of the reference's force-application elements
+JAX-native equivalents of the reference's force-application elements
 (ref: ctrl/mbd_kte/force_actuator.hpp:55 force_actuator, vmc_revolute_joint.hpp
 :58 virtual-model-control joints, virtual_kte_interface.hpp:49,
 line_point_mindist.hpp:51, plane_point_mindist.hpp:49 geometric constraint

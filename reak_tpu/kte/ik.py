@@ -1,6 +1,6 @@
 """Inverse kinematics: closed-form solvers for the named arms + CLIK.
 
-TPU-native equivalent of the reference's IK layer
+JAX-native equivalent of the reference's IK layer
 (ref: ctrl/kte_models/inverse_kinematics_model.hpp:54,73 doInverseMotion,
 manip_3R3R_arm.hpp:54 closed-form decoupled IK, manip_P3R3R_arm.hpp:60,
 manip_SCARA_arm.hpp:50, manip_clik_calculator.hpp:4-8,209 closed-loop IK as an
@@ -153,7 +153,7 @@ def ik_scara(spec: ChainSpec, p_ee, yaw=None, elbow=1.0):
 # a small fixed-point iteration); here the redundancy is an EXPLICIT angle
 # ``phi`` picking w on the circle of unit vectors ⊥ (wrist−shoulder), so a
 # vmap over phi evaluates the whole self-motion manifold in one batch — the
-# TPU-native replacement for the reference's branch search.
+# JAX-native replacement for the reference's branch search.
 #
 # Derivation (SSRMS axes z,x,y,y,y,x,z; offsets along local +z):
 #   p1 = (0,0,L0) fixed; p5 = p_ee − L5·ẑ_ee (joint-6 is a z-roll);
@@ -319,7 +319,7 @@ def clik(
 
 
 def clik_batched(spec: ChainSpec, p_targets, quat_targets, q0s, **kw):
-    """vmapped CLIK over a target batch — the TPU replacement for the
+    """vmapped CLIK over a target batch — the batched replacement for the
     reference's serial per-sample IK calls inside planning DK/IK maps
     (topologies/inverse_kinematics_topomap.hpp)."""
     return jax.vmap(lambda p, qt, q0: clik(spec, p, qt, q0, **kw))(

@@ -1,23 +1,21 @@
-"""Dense-lanes KTE rollout + LTV linearization — compact-graph TPU hot path.
+"""Dense-lanes KTE rollout + LTV linearization — the compact-graph XLA path.
 
 The register-form SoA module (kte/soa.py) emits one HLO op per scalar
-multiply-add; its flagship scan body is ~10k ops, which XLA-CPU takes minutes
-to optimize (the round-2 "4-5 minute compile" problem) and XLA-TPU several
-tens of seconds.  This module computes the SAME math in the same
-batch-LAST ("lanes") layout, but with the small structural dims (body, dof,
-xyz) stacked into array axes so every assembly step is one einsum /
+multiply-add; its flagship scan body is ~10k ops, which XLA takes minutes to
+optimize.  This module computes the SAME math in the same batch-LAST
+("lanes") layout, but with the small structural dims (body, dof, xyz)
+stacked into array axes so every assembly step is one einsum /
 broadcast-multiply-reduce: the scan body drops to a few hundred HLO ops while
-every contraction still reduces only tiny leading axes and keeps the scenario
-batch on full VPU lanes.
+every contraction still reduces only tiny leading axes and keeps the
+scenario batch as the contiguous last axis.
 
 Chain topology constants (axes, offsets, masks, inertias) fold into the trace
 at closure time, exactly like kte/soa.py.  Fixed-base revolute/prismatic
-chains only — the MPC benchmark regime; free-base flows stay on the generic
-kte/dynamics.py path.
+chains take the fast path; free-base chains route through the generic
+per-joint block assembly.
 
-The nv x nv mass-matrix solves dispatch to the Pallas batch-in-lanes Cholesky
-(ops/chol_lanes.py) on TPU, putting the kernel on the rollout path as well as
-the Riccati-PDIP path.
+The nv x nv mass-matrix solves are unrolled Cholesky recurrences
+(ctrl/riccati_soa._chol_solve_lanes).
 
 Equivalence with kte/soa.py (same sweeps as the reference's
 kte_map_chain.hpp:71-89 / mass_matrix_calculator.cpp:80-287 /
@@ -371,93 +369,6 @@ def make_rollout_ltv_lanes(spec: ChainSpec, dt: float, horizon: int,
     return rollout
 
 
-def make_rollout_ltv_fullfused(spec: ChainSpec, dt: float, horizon: int,
-                               order: int = 4, tile: int = None,
-                               interpret: bool = None):
-    """Rollout with the ENTIRE step (core + series discretization) in one
-    Pallas kernel (ops/kte_core_pallas.make_step_lanes) — the scan body is
-    a single kernel launch; same contract as make_rollout_ltv_lanes."""
-    from reak_tpu.ops import kte_core_pallas as kcp
-
-    if tile is None:
-        tile = kcp._TILE
-    step = kcp.make_step_lanes(spec, dt, order=order, tile=tile,
-                               interpret=interpret)
-
-    def rollout(x0, us):
-        x = x0.T
-        us_t = jnp.moveaxis(us, 0, -1)
-
-        def body(x, u_t):
-            Ad, Bd, cd, x_new = step(x, u_t)
-            return x_new, (Ad, Bd, cd, x_new)
-
-        _, seqs = jax.lax.scan(body, x, us_t)
-        return seqs
-
-    return rollout
-
-
-def make_rollout_ltv_fused(spec: ChainSpec, dt: float, horizon: int,
-                           order: int = 4, tile: int = None,
-                           interpret: bool = None):
-    """Rollout + LTV with the step core in ONE fused Pallas kernel
-    (ops/kte_core_pallas.py — the SURVEY §2.24 twist-shaping + mass-assembly
-    + factor + linearize kernel); the exponential-series tail and output
-    stacking stay in XLA (a handful of (n, n, B) lanes matmuls).
-
-    Same contract as make_rollout_ltv_lanes: ``fn(x0 (B, n), us (B, H, m)) →
-    (A (H,n,n,B), B (H,n,m,B), c (H,n,B), xs (H,n,B))``.  B must be a
-    multiple of the kernel tile (512).
-    """
-    from reak_tpu.ops import kte_core_pallas as kcp
-    from reak_tpu.ctrl.riccati_soa import _mm, _mv
-
-    nv = spec.nv
-    n = 2 * nv
-    if tile is None:
-        tile = kcp._TILE
-    core = kcp.make_core_lanes(spec, tile=tile, interpret=interpret)
-
-    def step(x, u):
-        """x (n, B), u (nv, B) → lanes-layout LTV blocks + next state."""
-        dtype = x.dtype
-        qd = x[nv:]
-        qdd, dqdd, minv = core(x, u)
-        top = jnp.concatenate(
-            [jnp.zeros((nv, nv), dtype), jnp.eye(nv, dtype=dtype)], axis=1
-        )[:, :, None]
-        A_c = jnp.concatenate(
-            [jnp.broadcast_to(top, (nv, n) + x.shape[1:]), dqdd], axis=0)
-        B_c = jnp.concatenate(
-            [jnp.zeros((nv, nv) + x.shape[1:], dtype), minv], axis=0)
-        f0 = jnp.concatenate([qd, qdd], axis=0)
-        eye_n = jnp.eye(n, dtype=dtype)[:, :, None]
-        S = eye_n * dt
-        term = eye_n * dt
-        for k in range(2, order + 1):
-            term = (dt / k) * _mm(A_c, term)
-            S = S + term
-        Ad = eye_n + _mm(A_c, S)
-        Bd = _mm(S, B_c)
-        x_new = x + _mv(S, f0)
-        cd = x_new - _mv(Ad, x) - _mv(Bd, u)
-        return Ad, Bd, cd, x_new
-
-    def rollout(x0, us):
-        x = x0.T
-        us_t = jnp.moveaxis(us, 0, -1)
-
-        def body(x, u_t):
-            Ad, Bd, cd, x_new = step(x, u_t)
-            return x_new, (Ad, Bd, cd, x_new)
-
-        _, seqs = jax.lax.scan(body, x, us_t)
-        return seqs
-
-    return rollout
-
-
 def make_rollout_lanes(spec: ChainSpec, dt: float):
     """Nominal-only lanes rollout (RK4): prices candidate input sequences
     for the SQP line-search at ~4 terms-evaluations per step — far cheaper
@@ -504,7 +415,7 @@ def make_kte_manifold_lanes(spec: ChainSpec, dt: float, actuated=None,
     * ``step(x (nq+nv, B), u (nu, B)) → x'`` — RK4 + base-quaternion
       renormalization, byte-identical math to ctrl/systems.kte_discrete
       (ref: manipulator_model.cpp:292-355 computeStateRate + the quaternion
-      packing of :301-344), scenario batch in VPU lanes;
+      packing of :301-344), scenario batch as the last axis;
     * ``ltv(x, u) → (A_d (2nv,2nv,B), B_d (2nv,nu,B), c_d (2nv,B))`` — the
       error-state series LTV of ctrl/systems.kte_manifold_ltv_linearizer
       (tangent chart e = [δp, δθ, δq_arm | δq̇] of kte.dynamics
@@ -514,8 +425,7 @@ def make_kte_manifold_lanes(spec: ChainSpec, dt: float, actuated=None,
       −[ω̄]× attitude-error transport block; c_d = −B_d ū (absolute-input
       decision variable).
 
-    This closes the fixed-base-only restriction the round-4 verdict flagged:
-    the satellite/airship/floating-arm domain now runs the same lanes +
+    The satellite/airship/floating-arm domain thus runs the same lanes +
     whole-PDIP pipeline as the fixed-base flagship.
     """
     from reak_tpu.ctrl.riccati_soa import _chol_solve_lanes, _mm, _mv

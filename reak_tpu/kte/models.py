@@ -1,6 +1,6 @@
 """Named robot chain builders.
 
-TPU-native equivalents of the reference's concrete manipulator models
+JAX-native equivalents of the reference's concrete manipulator models
 (ref: ctrl/kte_models/manip_3R_arm.hpp:48,152, manip_3R3R_arm.hpp:54,
 manip_P3R3R_arm.hpp:60, manip_SCARA_arm.hpp:50, manip_ERA_arm.hpp:50,
 manip_SSRMS_arm.hpp:51, free_floating_platform.hpp:48,175) and the classic

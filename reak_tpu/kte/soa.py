@@ -1,8 +1,8 @@
-"""Structure-of-arrays (batch-in-lanes) KTE dynamics — the TPU hot path.
+"""Structure-of-arrays (batch-in-lanes) KTE dynamics — the register form.
 
 The generic chain code (kte/dynamics.py) keeps vector/matrix components in
-trailing array axes; on TPU those tiny trailing dims (3, 4, 12) are padded to
-(8, 128) tiles, wasting ~40× memory bandwidth in the MPC rollout loop.  This
+trailing array axes, so every operation works on tiny (3, 4, 12)-wide
+trailing dims across the batch.  This
 module re-expresses the SAME math with the scenario batch as the LAST axis of
 every array and all small components as Python-level tuples ("registers"):
 each operation is a full-lane elementwise op, XLA fuses the chains, and chain

@@ -1,8 +1,8 @@
 """Algebraic Riccati equation solvers (CARE / DARE), batched & jit-friendly.
 
-TPU-native replacement for the reference's Schur-decomposition ARE solver
-(ref: core/lin_alg/mat_are_solver.hpp:1449,1598).  XLA has no nonsymmetric Schur
-on TPU, so we use iteration schemes with *static* iteration counts that map to
+JAX-native replacement for the reference's Schur-decomposition ARE solver
+(ref: core/lin_alg/mat_are_solver.hpp:1449,1598).  XLA has no batched
+nonsymmetric Schur decomposition, so we use iteration schemes with *static* iteration counts that map to
 pure batched matmul/solve work:
 
 - DARE: structure-preserving doubling algorithm (SDA) — quadratically convergent,

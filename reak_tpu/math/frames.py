@@ -1,6 +1,6 @@
 """Kinematic poses and frames as pytrees, with ReaK-compatible conventions.
 
-TPU-native re-design of the reference's chained-pointer frame classes
+JAX-native re-design of the reference's chained-pointer frame classes
 (ref: core/kinetostatics/pose_3D.hpp, frame_3D.hpp:50-76, gen_coord.hpp:45).
 Instead of parent-pointer chains mutated by sweeps, frames are immutable pytree
 values; composition is explicit (``compose``), and "global frame" resolution is

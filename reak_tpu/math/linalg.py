@@ -1,10 +1,10 @@
 """Batched dense numerics: PD solves, least squares, matrix exponential, norms.
 
-TPU-native replacement for the reference's decomposition library
+JAX-native replacement for the reference's decomposition library
 (ref: core/lin_alg/mat_cholesky.hpp:426, mat_qr_decomp.hpp:560, mat_exp_methods.hpp:72,
 mat_gaussian_elim.hpp:77, mat_norms.hpp).  All functions operate on ``(..., n, n)`` /
 ``(..., n, m)`` arrays and broadcast over leading batch axes; XLA batches the
-decompositions onto the MXU.  Structured-matrix classes from the reference
+decompositions.  Structured-matrix classes from the reference
 (symmetric/skew/diag/identity/nil) collapse into plain arrays plus the helper
 constructors below.
 """
@@ -128,11 +128,11 @@ def sqrtm_psd(A):
 
 def small_chol_solve(G, rhs, unroll_max: int = 16):
     """SPD solve specialized for tiny matrices: fully unrolled Cholesky +
-    substitution as straight-line elementwise ops (no XLA while-loops), which
-    is 2-5× faster than ``jnp.linalg.cholesky`` inside scans on TPU for
-    n ≤ ~12.  ``G``: (..., n, n), ``rhs``: (..., n, k) or (..., n).
+    substitution as straight-line elementwise ops (no XLA while-loops) that
+    XLA fuses into the surrounding step.  ``G``: (..., n, n), ``rhs``:
+    (..., n, k) or (..., n).
 
-    (The TPU counterpart of the reference's fixed-size template solves,
+    (The JAX counterpart of the reference's fixed-size template solves,
     mat_cholesky.hpp:426 — trace-time unrolling plays the role of template
     instantiation.)
     """

@@ -2,9 +2,9 @@
 
 Same math as reak_tpu.math.rotations (ref: core/kinetostatics/rotations_3D.hpp,
 quat_alg.hpp) with the component axis at position -2 and the scenario batch on
-the LAST axis — the (k, B) register layout of the TPU hot paths (kte/lanes.py,
-ctrl/riccati_soa.py): every op is a full-lane elementwise op on (8, 128) VPU
-tiles instead of padding a 3/4-wide trailing axis ~40×.
+the LAST axis — the (k, B) register layout of the batched hot paths
+(kte/lanes.py, ctrl/riccati_soa.py): every op is an elementwise op over the
+whole contiguous batch instead of over a 3/4-wide trailing axis.
 
 All functions accept (..., k, B) with k ∈ {3, 4} and broadcast leading axes.
 AD-safe at the identity (q_exp/q_log series guards mirror math/rotations.py).

@@ -1,6 +1,6 @@
 """Rotations: 2D angles, 3D quaternions, rotation matrices, axis-angle, Euler TB.
 
-TPU-native re-design of the reference's rotation classes
+JAX-native re-design of the reference's rotation classes
 (ref: core/kinetostatics/rotations_2D.hpp, rotations_3D.hpp:73,552, quat_alg.hpp:49).
 Instead of class hierarchies, rotations are plain arrays with conventions:
 

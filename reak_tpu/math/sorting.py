@@ -1,6 +1,6 @@
 """Sorting & selection utilities, device-batched.
 
-TPU-native equivalent of the reference's core/sorting layer
+JAX-native equivalent of the reference's core/sorting layer
 (ref: core/sorting/*.hpp — bubble/insertion/selection/comb/heap/merge/shell/
 quick/intro sorts, consumed by DVP-tree partitioning and reachability sorts,
 path_planning/reachability_sort.hpp).
@@ -16,7 +16,7 @@ Two tiers:
   of ``log²n`` elementwise min/max waves over a static permutation — no
   data-dependent control flow, so it fuses into surrounding elementwise
   pipelines and is the form a Pallas kernel sorts lane-resident tiles with
-  (XLA's sort is a called routine and cannot fuse).  This is the TPU-native
+  (XLA's sort is a called routine and cannot fuse).  This is the JAX-native
   answer to the reference's nine comparison sorts: on hardware where
   branching is per-lane-impossible, the sorting *network* is the algorithm.
 """

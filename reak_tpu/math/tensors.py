@@ -1,9 +1,9 @@
 """Order-3/4 tensor algebra helpers.
 
-TPU-native equivalent of the reference's core/tensors layer
+JAX-native equivalent of the reference's core/tensors layer
 (ref: core/tensors/tensor_alg_rectangular.hpp, tensor_alg_square.hpp,
 tensor_alg_nil.hpp, adaptors + concepts — declared but lightly used in the
-reference; SURVEY.md §2.5 flags it low priority).  On TPU a "tensor type"
+reference; SURVEY.md §2.5 flags it low priority).  In JAX a "tensor type"
 is just an array with contraction conventions, so this module provides the
 named contractions the reference's adaptors would perform, all batched.
 """

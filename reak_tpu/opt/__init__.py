@@ -1,6 +1,6 @@
 """Optimization toolbox: line searches, root finders, NLLSQ, NLP, constrained.
 
-TPU-native re-design of the reference's `core/optimization` (30 files, ~15.1k
+JAX-native re-design of the reference's `core/optimization` (30 files, ~15.1k
 LoC — line_search.hpp, quadratic_programs.hpp, gauss_newton_method.hpp,
 levenberg_marquardt_method.hpp, quasi_newton_methods.hpp, newton_methods.hpp,
 nonlin_conjugate_gradient_methods.hpp, augmented_lagrangian_methods.hpp,

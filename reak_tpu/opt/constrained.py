@@ -1,6 +1,6 @@
 """Constrained NLP: augmented Lagrangian, equality SQP, log-barrier IP.
 
-TPU-native equivalents of the reference's constrained solvers
+JAX-native equivalents of the reference's constrained solvers
 (ref: core/optimization/augmented_lagrangian_methods.hpp,
 sequential_qp_methods.hpp:196 Byrd–Omojokun SQP,
 nl_interior_points_methods.hpp:1215 interior-point LS/TR).

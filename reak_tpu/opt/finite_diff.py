@@ -1,6 +1,6 @@
 """Finite-difference derivatives (validation/parity tool).
 
-TPU-native equivalent of the reference's finite-difference Jacobians
+JAX-native equivalent of the reference's finite-difference Jacobians
 (ref: core/optimization/finite_diff_jacobians.hpp — forward/central 2nd/4th
 order).  In this framework AD is the production path; these exist to
 cross-check AD pipelines and for black-box callables.

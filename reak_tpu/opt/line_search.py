@@ -1,9 +1,9 @@
 """1-D line searches as straight-line batched programs.
 
-TPU-native equivalents of the reference's line-search family
+JAX-native equivalents of the reference's line-search family
 (ref: core/optimization/line_search.hpp — dichotomous, golden-section,
 Fibonacci, backtracking, expand-and-zoom).  Each runs a *fixed* number of
-shrink steps (compile-time constant), which on a TPU is cheaper and more
+shrink steps (compile-time constant), which on an accelerator is cheaper and more
 vmap-friendly than data-dependent termination: the interval contracts
 geometrically, so ``iters≈40`` already reaches f64 resolution.
 """
@@ -67,7 +67,7 @@ def backtracking_armijo(f, x, d, fx, gx, alpha0=1.0, rho: float = 0.5,
 
     Runs all ``iters`` shrinks as straight-line code, keeping the *first*
     step length that satisfies the Armijo condition — equivalent to the
-    sequential early-exit loop but branch-free for vmap/MXU.
+    sequential early-exit loop but branch-free for vmap.
     Returns (alpha, f(x + alpha d)).
     """
     slope = jnp.vdot(gx, d)

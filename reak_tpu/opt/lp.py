@@ -4,7 +4,7 @@ The reference ships two LP solvers — primal-dual simplex
 (ref: core/optimization/simplex_method.hpp) and a Mehrotra interior-point
 (ref: core/optimization/mehrotra_method.hpp) — and its own README flags BOTH
 as broken ("the LP solvers don't work", ref: README:301-303).  This module
-provides a *working* TPU-native replacement: a standard-form Mehrotra
+provides a *working* JAX-native replacement: a standard-form Mehrotra
 predictor-corrector with the normal-equations solve batched as dense
 Cholesky, a fixed iteration budget (XLA-friendly: `lax.scan`, no
 data-dependent control flow), and the classic Mehrotra starting-point

@@ -1,6 +1,6 @@
 """Nonlinear least squares: Gauss–Newton, Levenberg–Marquardt, J-transpose.
 
-TPU-native equivalents of the reference's NLLSQ solvers
+JAX-native equivalents of the reference's NLLSQ solvers
 (ref: core/optimization/gauss_newton_method.hpp gauss_newton_nllsq,
 levenberg_marquardt_method.hpp:57 levenberg_marquardt_nllsq,
 jacobian_transpose_method.hpp).  Jacobians come from forward-mode AD rather

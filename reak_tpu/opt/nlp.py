@@ -1,6 +1,6 @@
 """Unconstrained NLP solvers: Nelder–Mead, BFGS, SR1-TR, nonlinear CG, Newton.
 
-TPU-native equivalents of the reference's NLP family
+JAX-native equivalents of the reference's NLP family
 (ref: core/optimization/nelder_mead_method.hpp, quasi_newton_methods.hpp
 bfgs_method / sr1_tr_method, nonlin_conjugate_gradient_methods.hpp,
 newton_methods.hpp, trust_region_search.hpp, hessian_update.hpp).

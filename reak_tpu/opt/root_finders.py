@@ -1,6 +1,6 @@
 """Scalar and vector root finders, batched with static iteration budgets.
 
-TPU-native equivalents of the reference's `core/root_finders`
+JAX-native equivalents of the reference's `core/root_finders`
 (ref: bisection_method.hpp:58 bisection_method, secant_method.hpp:249
 secant/Illinois/Ford-3/Brent/Ridders family, newton_raphson_method.hpp:63,
 broyden_method.hpp).  Scalar finders take an elementwise-vectorized ``f`` and

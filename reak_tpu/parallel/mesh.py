@@ -41,34 +41,28 @@ def sharded_map(fn: Callable, mesh: Mesh, axis_name: str = "scenarios"):
     mesh size) and must be vmapped/batched internally.  Collectives
     (``jax.lax.psum(..., axis_name)``) are available inside.
     """
-    # check_vma=False: pallas_call outputs inside the shard (the fused
-    # KTE/Riccati kernels) do not declare varying-manual-axes metadata
     return jax.shard_map(
-        fn, mesh=mesh, in_specs=P(axis_name), out_specs=P(axis_name),
-        check_vma=False,
-    )
+        fn, mesh=mesh, in_specs=P(axis_name), out_specs=P(axis_name))
 
 
 def pmean_scalar(fn: Callable, mesh: Mesh, axis_name: str = "scenarios"):
     """shard_map a function returning (per-shard batch, scalar summary); the
-    scalar is psum-averaged across the mesh (rides ICI)."""
+    scalar is psum-averaged across the mesh."""
 
     def wrapped(*args):
         out, s = fn(*args)
         s = jax.lax.pmean(s, axis_name)
         return out, s
 
-    # check_vma=False: see sharded_map (pallas outputs carry no vma metadata)
     return jax.shard_map(
         wrapped, mesh=mesh, in_specs=P(axis_name),
-        out_specs=(P(axis_name), P()), check_vma=False,
-    )
+        out_specs=(P(axis_name), P()))
 
 
 def distribute_init(coordinator: str | None = None, num_processes: int | None = None,
                     process_id: int | None = None):
     """Multi-host bring-up (``jax.distributed.initialize``); no-op when single
-    host or when args are missing.  (SURVEY.md §5.8 TPU-native equivalent of
+    host or when args are missing.  (SURVEY.md §5.8 JAX-native equivalent of
     the reference's network streaming backend.)"""
     if coordinator is None:
         return False

@@ -1,6 +1,6 @@
 """Sampling-based motion planning with device-batched evaluation.
 
-TPU-native re-design of the reference's planner stack
+JAX-native re-design of the reference's planner stack
 (ref: ctrl/graph_alg/rr_tree.hpp:179, rrt_star.hpp:530,
 probabilistic_roadmap.hpp:309, sbastar_search.hpp:869,
 ctrl/path_planning/rrt_path_planner.hpp:64, metric_space_search.hpp:172

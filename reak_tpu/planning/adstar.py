@@ -1,10 +1,10 @@
 """AD* — Anytime Dynamic A* over an explicit graph.
 
-TPU-native split of the reference's AD* (ref: ctrl/graph_alg/adstar_search.hpp
+JAX-native split of the reference's AD* (ref: ctrl/graph_alg/adstar_search.hpp
 :794-796,875-877 adstar_search overloads; consumed by
 path_planning/fadprm_path_planner.hpp): the *search* is pointer-heavy host
 work (numpy + heap), while edge costs/validity come from batched device
-evaluation (the caller re-validates whole edge sets on the TPU and feeds cost
+evaluation (the caller re-validates whole edge sets on the device and feeds cost
 changes in via :meth:`ADStar.update_edges`).
 
 AD* = anytime (inflated heuristic ε decreasing toward 1) + dynamic

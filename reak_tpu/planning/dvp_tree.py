@@ -6,7 +6,7 @@ dvp_tree_detail.hpp, multi_dvp_tree_search.hpp:61)
 Host-side index over points whose metric is an arbitrary Space.distance;
 distance evaluations are *batched on device* both at build time (one call per
 tree level, not per node) and at query time (one call per visited node's
-children).  On TPU the brute-force masked-linear NN (planning.rrt._masked_nn)
+children).  On the device the brute-force masked-linear NN (planning.rrt._masked_nn)
 wins below ~10⁵ points because one fused distance kernel beats tree pointer
 chasing; the DVP tree exists for the big-roadmap regime and for host-resident
 query sets — the same trade the reference's multi_dvp_tree_search vs

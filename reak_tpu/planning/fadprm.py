@@ -4,7 +4,7 @@
 path_planning/fadprm_path_planner.hpp:64)
 
 The reference couples a PRM roadmap with an AD* search whose heuristic is
-inflated ("flexible" weight ε) and repaired when the world changes.  TPU
+inflated ("flexible" weight ε) and repaired when the world changes.  Device
 split: roadmap growth = batched device waves (sampling, validity, k-NN
 distances, edge collision checks); search = host AD* (planning.adstar);
 dynamic changes = batched edge re-validation feeding ADStar.update_edges.

@@ -4,7 +4,7 @@
 branch_and_bound_connector.hpp, lazy_sbastar.hpp — the reference's family of
 edge-evaluation-deferring and incumbent-pruning connectors.)
 
-TPU-native composition:
+JAX-native composition:
 
 * ``lazy_prm_plan`` — Lazy-PRM: build the roadmap with OPTIMISTIC edges
   (no collision checks), A* on host, then batch-validate ONLY the edges on

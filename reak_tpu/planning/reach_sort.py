@@ -10,7 +10,7 @@ from p (t_q − t_p ≥ d(p, q)) then BOTH
     backward_reach(q) ≥ backward_reach(p)   (b = t − d(origin, ·))
     forward_reach(q)  ≥ forward_reach(p)    (f = t + d(origin, ·))
 so candidates live in an upper-right quadrant of the (b, f) plane.  The
-TPU-native container keeps the set sorted by b (math/sorting.lexsort_2key):
+JAX-native container keeps the set sorted by b (math/sorting.lexsort_2key):
 a searchsorted gives the quadrant's start row, the f-mask trims it, and only
 the surviving candidates get exact distance evaluations — all as fused
 masked device ops.

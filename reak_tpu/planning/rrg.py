@@ -4,7 +4,7 @@
 
 RRT-style steering toward uniform samples, but every new vertex also connects
 to *all* collision-free neighbors inside the shrinking RRT* ball, producing a
-graph (not a tree) whose shortest paths converge to optimal.  TPU split: the
+graph (not a tree) whose shortest paths converge to optimal.  Device split: the
 sample→nearest→steer→neighbor→edge-check pipeline runs as device batches; the
 final shortest path is host A* (planning.graph_search.astar).
 """

@@ -5,7 +5,7 @@ flagship anytime planner: SBA* best-key density-guided expansion interleaved
 with RRT* random exploration, all connections through the optimal
 choose-parent + rewire machinery.)
 
-TPU-native composition: every iteration draws ONE mixed K-sample wave —
+JAX-native composition: every iteration draws ONE mixed K-sample wave —
 half uniform/goal-biased (the RRT* exploration share), half Gaussian around
 the current best-key SBA* front (key = (g + h)·(1 + α·density), density as a
 batched KDE over the vertex set) — and pushes the whole wave through the

@@ -53,7 +53,7 @@ class NoObstacleWorkspace(Workspace):
 
 
 def bitmap_workspace(space, grid, lower, upper, n_checks: int = 16) -> Workspace:
-    """2D occupancy-grid world — the TPU analog of the reference's OpenCV
+    """2D occupancy-grid world — the device-side analog of the reference's OpenCV
     bitmap test world (ref: topologies/ptrobot2D_test_world.hpp:65).
 
     ``grid``: (H, W) bool array, True = free; points map linearly from

@@ -1,6 +1,6 @@
 """Metric spaces / topologies for sampling-based planning and interpolation.
 
-TPU-native re-design of the reference's configuration-space library
+JAX-native re-design of the reference's configuration-space library
 (ref: ctrl/topologies/* — metric_space_concept.hpp, differentiable_space.hpp:220,
 metric_space_tuple.hpp, se3_topologies.hpp:186, joint_space_topologies.hpp:63,
 Ndof_spaces.hpp:138, temporal_space.hpp, rate_limited_spaces.hpp).

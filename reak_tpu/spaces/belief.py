@@ -5,7 +5,7 @@
  (covar_topology.hpp), with the symmetrized-KL belief distance; consumed by
  the topology-generic planning machinery.)
 
-TPU-native design: a belief point is a FLAT array ``[mean (n) | vech(S)
+JAX-native design: a belief point is a FLAT array ``[mean (n) | vech(S)
 (n(n+1)/2)]`` where S is the lower-triangular square-root factor of the
 covariance (P = S Sᵀ) — the reference's decomposed covariance storage
 (decomp_covariance_matrix.hpp) chosen here because linear interpolation of

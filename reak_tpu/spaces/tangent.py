@@ -4,7 +4,7 @@
 with per-level differentiation rules; Ndof_spaces.hpp Ndof_1st/2nd_order
 spaces; reachability_space.hpp:180,237 — forward/backward reachable norms.)
 
-TPU-native design: a point of an order-N bundle is a NamedTuple of arrays
+JAX-native design: a point of an order-N bundle is a NamedTuple of arrays
 (q, qd[, qdd]) with arbitrary leading batch axes — the reference's recursive
 ``differentiable_space`` template tuple collapses into this flat pytree.  The
 1st/2nd-order rate-limited metrics are the REAL reach times of the SVP/SAP
@@ -242,7 +242,7 @@ class DifferentiableSpace:
     any base space composed with a tuple of derivative spaces, each level
     linked to the next by time differentiation.)
 
-    TPU-native collapse: a point is a TUPLE of per-level points (x0 … xN);
+    JAX-native collapse: a point is a TUPLE of per-level points (x0 … xN);
     every operation delegates level-wise (one fused device expression — the
     reference's compile-time recursion becomes a Python loop folded at trace
     time).  The hand-rolled Ndof1stOrderSpace/Ndof2ndOrderSpace above remain

@@ -55,7 +55,7 @@ def test_inequality_form_matches_scipy(rng):
 
 
 def test_lp_vmap_batch(rng):
-    """Batched LPs under vmap — the TPU-native usage mode."""
+    """Batched LPs under vmap — the JAX-native usage mode."""
     m, n, B = 4, 9, 16
     As, bs, cs = [], [], []
     for _ in range(B):

@@ -1,12 +1,8 @@
 """Mesh-shape equivalence: the sharded flagship solver and the fold_in-keyed
 scenario sampling must produce IDENTICAL results on a 1-device and an 8-device
-mesh (SURVEY §7 "multi-host determinism"; VERDICT r3 item 4).
-
-This is the compensating check for ``check_vma=False`` on the shard_map call
-sites (pallas_call outputs cannot carry varying-manual-axes metadata in
-interpret mode — JAX's own error message prescribes check_vma=False as the
-workaround): a replicated-vs-sharded mix-up anywhere in the fused solver path
-would make the 8-device result differ from the 1-device result here.
+mesh (SURVEY §7 "multi-host determinism"): a replicated-vs-sharded mix-up
+anywhere in the fused solver path would make the 8-device result differ
+from the 1-device result here.
 """
 import jax
 import jax.numpy as jnp
@@ -47,7 +43,6 @@ def _run_on_mesh(solver, n_devices, x0, u0):
             local_step, mesh=mesh,
             in_specs=(P("scenarios"), P("scenarios")),
             out_specs=(P("scenarios"), P()),
-            check_vma=False,
         )
     )
     us, mc = step(x0, u0)

@@ -14,24 +14,24 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-NATIVE = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "native"))
-ORACLE = os.path.join(NATIVE, "mpc_oracle")
+SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "native",
+                                   "mpc_oracle.cpp"))
+ORACLE = None  # path of the binary built by the ``oracle`` fixture
 
 
-def _build_oracle():
-    if (os.path.exists(ORACLE) and os.path.getmtime(ORACLE)
-            >= os.path.getmtime(ORACLE + ".cpp")):
-        return True
+@pytest.fixture(scope="session", autouse=True)
+def oracle(tmp_path_factory):
+    """Builds the oracle from native/mpc_oracle.cpp once per test process,
+    into that process's own temporary directory; skips without g++."""
+    global ORACLE
+    out = tmp_path_factory.mktemp("oracle") / "mpc_oracle"
     try:
-        subprocess.run(["g++", "-O2", "-std=c++17", ORACLE + ".cpp",
-                        "-o", ORACLE], check=True, capture_output=True)
-        return True
-    except Exception:
-        return False
-
-
-pytestmark = pytest.mark.skipif(not _build_oracle(),
-                                reason="no native toolchain")
+        subprocess.run(["g++", "-O2", "-std=c++17", SRC, "-o", str(out)],
+                       check=True, capture_output=True, timeout=600)
+    except (OSError, subprocess.SubprocessError) as e:
+        pytest.skip(f"cannot build the C++ oracle: {e}")
+    ORACLE = str(out)
+    return ORACLE
 
 
 def _export(path, A, B, c, x0, Q, QN, R, lb, ub):
@@ -330,7 +330,7 @@ def test_tracking_pdip_matches_cpp_oracle(tmp_path):
         jnp.asarray(x0)[:, None], jnp.asarray(lb), jnp.asarray(ub),
         x_ref=jnp.moveaxis(jnp.asarray(e_ref)[None], 0, -1),
         u_ref=jnp.moveaxis(jnp.asarray(u_ref)[None], 0, -1),
-        iters=30, use_kernels="never")
+        iters=30)
     u_jax = np.asarray(u_jax[..., 0])
     err = float(np.abs(u_jax - u_cpp).max())
     assert err <= 1e-4, f"tracking parity {err:.2e} > 1e-4"

@@ -193,7 +193,7 @@ def test_mpc_nonlinear_pendulum_swingdown():
 # ---------------------------------------------------------------------------
 # BASELINE config 4: free-base belief-sampled scenario MPC
 # (ref: satellite_invar_models.hpp:296 + gaussian_belief_state.hpp:491 +
-#  belief_state_predictor.hpp:79 — composed TPU-natively in ctrl/mpc_manifold)
+#  belief_state_predictor.hpp:79 — composed natively in JAX in ctrl/mpc_manifold)
 # ---------------------------------------------------------------------------
 
 

@@ -130,8 +130,7 @@ def test_rigid_traj_tabulated_interpolates():
 
 
 def test_mesh_helpers_shard_and_reduce():
-    """parallel/mesh sharded_map + pmean_scalar on the virtual mesh (with
-    check_vma=False so pallas-bearing shards compose on real meshes)."""
+    """parallel/mesh sharded_map + pmean_scalar on the virtual mesh."""
     import jax
     import jax.numpy as jnp
     from reak_tpu.parallel import mesh as pm
